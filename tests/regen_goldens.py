@@ -9,18 +9,18 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 os.environ.setdefault("VKR_PLATFORM", "cpu")
 
-from vkr_tpu.core.platform import ensure_platform
+from vkr.core.platform import ensure_platform
 
 ensure_platform()
 
 import numpy as np
 
-from vkr_tpu.core.readback import save_png
+from vkr.core.readback import save_png
 from tests.test_golden import CASES, GOLDEN_DIR, render_scene, srgb
 
 
 def main():
-    from vkr_tpu.scene import colonnade_scene, load_scene
+    from vkr.scene import colonnade_scene, load_scene
 
     for case, c in CASES.items():
         if "path" in c:

@@ -7,7 +7,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from vkr_tpu.scene.accel import (TriGrid, build_tri_grid, _tri_hit_mask,
+from vkr.scene.accel import (TriGrid, build_tri_grid, _tri_hit_mask,
                                  ray_any_hit)
 
 
@@ -85,7 +85,7 @@ class TestGTAORT:
                 np.asarray(tris, np.int32))
 
     def test_visibility_under_blocker(self):
-        from vkr_tpu.passes.gtao import ao_ray_directions
+        from vkr.passes.gtao import ao_ray_directions
 
         dirs = ao_ray_directions(64)
         for with_blocker, expect_occluded in ((False, False),
@@ -116,9 +116,9 @@ class TestGTAORT:
         sys.path.insert(0, "tests")
         from test_ssr_march import _scene
 
-        from vkr_tpu.core import registry
-        from vkr_tpu.frame import _inv4, _rt_direction_table
-        from vkr_tpu.mathlib import look_at
+        from vkr.core import registry
+        from vkr.frame import _inv4, _rt_direction_table
+        from vkr.mathlib import look_at
 
         hiz, params = _scene()
         depth_half = hiz.mips[0]
@@ -142,9 +142,9 @@ class TestGTAORT:
         assert 0.0 <= ao.min() and ao.max() <= 1.6
         # world-space masks: floor pixels near the wall (z > 2.6, within
         # the 0.5 ray range of it) must be darker than open floor
-        from vkr_tpu.mathlib.octahedral import decode_normal
-        from vkr_tpu.mathlib.projection import reconstruct_view_vec
-        from vkr_tpu.passes.sampling import screen_uv_grid
+        from vkr.mathlib.octahedral import decode_normal
+        from vkr.mathlib.projection import reconstruct_view_vec
+        from vkr.passes.sampling import screen_uv_grid
 
         uv = screen_uv_grid(h, w)
         vv = np.asarray(reconstruct_view_vec(

@@ -35,12 +35,12 @@ def load_golden(name):
 
 
 def render_scene(scene_cpu, eye, center, frames=3):
-    from vkr_tpu.config import RenderConfig
-    from vkr_tpu.core.framestate import FrameState
-    from vkr_tpu.frame import (build_ssr_resources, camera_frame,
+    from vkr.config import RenderConfig
+    from vkr.core.framestate import FrameState
+    from vkr.frame import (build_ssr_resources, camera_frame,
                                render_frame)
-    from vkr_tpu.mathlib import look_at
-    from vkr_tpu.passes.gbuffer import upload_scene
+    from vkr.mathlib import look_at
+    from vkr.passes.gbuffer import upload_scene
 
     cfg = RenderConfig(width=128, height=128)
     cfg = dataclasses.replace(
@@ -79,7 +79,7 @@ CASES = {
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_golden(case):
-    from vkr_tpu.scene import colonnade_scene, load_scene
+    from vkr.scene import colonnade_scene, load_scene
 
     c = CASES[case]
     if "path" in c:
@@ -114,9 +114,9 @@ class TestMaskDepthPeel:
         import numpy as np
         import jax.numpy as jnp
 
-        from vkr_tpu.mathlib import look_at, perspective
-        from vkr_tpu.passes.gbuffer import render_gbuffer, upload_scene
-        from vkr_tpu.scene.procedural import two_masked_quads_scene
+        from vkr.mathlib import look_at, perspective
+        from vkr.passes.gbuffer import render_gbuffer, upload_scene
+        from vkr.scene.procedural import two_masked_quads_scene
 
         scene_cpu = two_masked_quads_scene()
         scene = upload_scene(scene_cpu)

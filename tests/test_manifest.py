@@ -11,17 +11,17 @@ import pkgutil
 import numpy as np
 import jax.numpy as jnp
 
-from vkr_tpu.mathlib import encode_normal, look_at, normal_matrix
-from vkr_tpu.mathlib.projection import encode_depth
-from vkr_tpu.mathlib.transforms import perspective
+from vkr.mathlib import encode_normal, look_at, normal_matrix
+from vkr.mathlib.projection import encode_depth
+from vkr.mathlib.transforms import perspective
 
 REF_MANIFEST = "/root/reference/src/shaders/config.json"
 
 
 def _import_all_pass_modules():
-    import vkr_tpu.frame  # noqa: F401 — pulls the production graph
-    import vkr_tpu.passes as passes_pkg
-    import vkr_tpu.raster as raster_pkg
+    import vkr.frame  # noqa: F401 — pulls the production graph
+    import vkr.passes as passes_pkg
+    import vkr.raster as raster_pkg
 
     for pkg in (passes_pkg, raster_pkg):
         for info in pkgutil.iter_modules(pkg.__path__):
@@ -30,7 +30,7 @@ def _import_all_pass_modules():
 
 class TestManifest:
     def test_every_config_json_name_resolves(self):
-        from vkr_tpu.core import registry
+        from vkr.core import registry
 
         _import_all_pass_modules()
         with open(REF_MANIFEST) as f:
@@ -45,8 +45,8 @@ class TestManifest:
 def _mirror_floor(W=64, H=64):
     """Mirror floor + back wall depth/normal rig (shared with
     TestSimpleSSR's scene, tests/test_aux.py)."""
-    from vkr_tpu.passes.downsample import build_hiz
-    from vkr_tpu.raster import rasterize
+    from vkr.passes.downsample import build_hiz
+    from vkr.raster import rasterize
 
     view = look_at((0, 1.0, -2.0), (0, 0.8, 1.0), (0, -1, 0))
     proj = perspective(np.radians(60), 1.0, 0.05, 80.0)
@@ -71,9 +71,9 @@ def _mirror_floor(W=64, H=64):
 
 class TestTraceIndirect:
     def test_mirror_tiles_hit_glossy_tiles_untouched(self):
-        from vkr_tpu.mathlib.brdf import halton23_table
-        from vkr_tpu.passes.ssr import SSRParams, pack_pyramid
-        from vkr_tpu.passes.ssr_tiles import (classify_tiles,
+        from vkr.mathlib.brdf import halton23_table
+        from vkr.passes.ssr import SSRParams, pack_pyramid
+        from vkr.passes.ssr_tiles import (classify_tiles,
                                               ssr_trace_indirect)
 
         W = H = 64
@@ -104,9 +104,9 @@ class TestTraceIndirect:
         assert (left[..., 3] < 1.0).mean() > 0.01
 
     def test_glossy_type_runs_mip1(self):
-        from vkr_tpu.mathlib.brdf import halton23_table
-        from vkr_tpu.passes.ssr import SSRParams, pack_pyramid
-        from vkr_tpu.passes.ssr_tiles import (classify_tiles,
+        from vkr.mathlib.brdf import halton23_table
+        from vkr.passes.ssr import SSRParams, pack_pyramid
+        from vkr.passes.ssr_tiles import (classify_tiles,
                                               ssr_trace_indirect)
 
         W = H = 64
@@ -128,7 +128,7 @@ class TestTraceIndirect:
 
 class TestGtaoReproject:
     def test_static_mode_blends_only_stable_pixels(self):
-        from vkr_tpu.passes.gtao import gtao_reproject
+        from vkr.passes.gtao import gtao_reproject
 
         H = W = 32
         d = float(encode_depth(jnp.asarray(-5.0), 0.05, 80.0))
@@ -148,14 +148,14 @@ class TestGtaoReproject:
         assert np.allclose(out[: H // 2], 1.0)
 
     def test_matrix_mode_identity_matches_static(self):
-        from vkr_tpu.passes.gtao import gtao_reproject
+        from vkr.passes.gtao import gtao_reproject
 
         H = W = 32
         d = float(encode_depth(jnp.asarray(-5.0), 0.05, 80.0))
         cur_depth = jnp.full((H, W), d)
         cur_ao = jnp.full((H, W), 1.0)
         prev_ao = jnp.full((H, W), 0.0)
-        from vkr_tpu.mathlib.transforms import perspective as _persp
+        from vkr.mathlib.transforms import perspective as _persp
 
         # camera_to_prev_frame for a static camera = the projective map
         # back to NDC (main.cpp:372 builds prev_mvp * inv(view); with
@@ -181,9 +181,9 @@ class TestGtaoReproject:
 
 class TestLegacyGbuf:
     def test_zero_velocity_and_matches_taa_geometry(self):
-        from vkr_tpu.core.registry import get as rget
-        from vkr_tpu.passes.gbuffer import upload_scene
-        from vkr_tpu.scene import colonnade_scene
+        from vkr.core.registry import get as rget
+        from vkr.passes.gbuffer import upload_scene
+        from vkr.scene import colonnade_scene
 
         _import_all_pass_modules()
         scene = upload_scene(colonnade_scene(columns=2, tessellation=6,

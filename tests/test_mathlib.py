@@ -6,7 +6,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from vkr_tpu.mathlib import (
+from vkr.mathlib import (
     decode_normal,
     encode_depth,
     encode_normal,
@@ -17,7 +17,7 @@ from vkr_tpu.mathlib import (
     reconstruct_view_vec,
     taa_jitter_sequence,
 )
-from vkr_tpu.mathlib.brdf import (
+from vkr.mathlib.brdf import (
     brdf_g2,
     distribution_ggx,
     fresnel_schlick,
@@ -190,15 +190,41 @@ class TestBRDF:
 
 class TestFormats:
     def test_unorm_round_trip(self):
-        from vkr_tpu.core.formats import quantize_unorm
+        from vkr.core.formats import quantize_unorm
 
         x = jnp.linspace(0, 1, 257)
         q = np.asarray(quantize_unorm(x, 8))
         assert np.max(np.abs(q - np.asarray(x))) <= 0.5 / 255 + 1e-6
 
     def test_srgb_round_trip(self):
-        from vkr_tpu.core.formats import linear_to_srgb, srgb_to_linear
+        from vkr.core.formats import linear_to_srgb, srgb_to_linear
 
         x = jnp.linspace(0, 1, 100)
         back = np.asarray(srgb_to_linear(linear_to_srgb(x)))
         assert np.max(np.abs(back - np.asarray(x))) < 1e-5
+
+    def test_d24_on_power_of_two_grid(self):
+        from vkr.core.formats import quantize_d24
+
+        x = jnp.asarray(np.random.default_rng(0).random(4096), jnp.float32)
+        q = np.asarray(quantize_d24(x), np.float64)
+        k = q * 2.0 ** 24
+        np.testing.assert_array_equal(k, np.round(k))
+        # within 6e-8 of the D24 UNORM value k / (2^24 - 1)
+        assert np.abs(k / (2.0 ** 24 - 1) - q).max() < 6e-8
+        np.testing.assert_array_equal(np.asarray(quantize_d24(q)), q)
+
+    def test_d24_subtraction_is_the_same_fused_or_not(self):
+        """A consumer that subtracts the quantized depth gets the same
+        value whether the quantization is fused into it or read back."""
+        import jax
+
+        from vkr.core.formats import quantize_d24
+
+        rng = np.random.default_rng(1)
+        d = jnp.asarray(rng.uniform(0.01, 1.0, 4096), jnp.float32)
+        x = jnp.asarray(rng.uniform(0.01, 1.0, 4096), jnp.float32)
+        q = np.asarray(quantize_d24(d))
+        fused = np.asarray(jax.jit(lambda d, x: x - quantize_d24(d))(d, x))
+        np.testing.assert_array_equal(fused, np.asarray(x) - q)
+

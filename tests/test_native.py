@@ -7,21 +7,21 @@ import numpy as np
 import pytest
 
 NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "vkr_tpu", "native")
+    os.path.abspath(__file__))), "vkr", "native")
 
 
 @pytest.fixture(scope="module", autouse=True)
 def build_native():
     subprocess.run(["make", "-C", NATIVE_DIR], check=True,
                    capture_output=True)
-    from vkr_tpu import native
+    from vkr import native
 
     native._lib = None  # force reload after build
     assert native.available()
 
 
 def test_mip_downsample_matches_numpy():
-    from vkr_tpu import native
+    from vkr import native
 
     rng = np.random.default_rng(0)
     src = rng.integers(0, 256, (3, 16, 16, 4), np.uint8)
@@ -34,7 +34,7 @@ def test_mip_downsample_matches_numpy():
 
 
 def test_full_pyramid_via_native():
-    from vkr_tpu.scene.scene import build_mip_pyramid
+    from vkr.scene.scene import build_mip_pyramid
 
     rng = np.random.default_rng(1)
     tex = rng.integers(0, 256, (2, 32, 32, 4), np.uint8)
@@ -43,7 +43,7 @@ def test_full_pyramid_via_native():
 
 
 def test_resize_identity_and_downscale():
-    from vkr_tpu import native
+    from vkr import native
 
     rng = np.random.default_rng(2)
     src = rng.integers(0, 256, (16, 16, 4), np.uint8)
@@ -58,7 +58,7 @@ def test_resize_identity_and_downscale():
 
 
 def test_transform_points():
-    from vkr_tpu import native
+    from vkr import native
 
     rng = np.random.default_rng(3)
     m = np.eye(4, dtype=np.float32)

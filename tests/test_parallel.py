@@ -12,14 +12,14 @@ import pytest
 def test_view_parallel_rendering():
     import dataclasses
 
-    from vkr_tpu.config import RenderConfig
-    from vkr_tpu.core.framestate import FrameState
-    from vkr_tpu.frame import build_ssr_resources, camera_frame
-    from vkr_tpu.mathlib import look_at
-    from vkr_tpu.parallel import make_render_mesh, render_views_sharded
-    from vkr_tpu.parallel.sharding import batch_cams, batch_states
-    from vkr_tpu.passes.gbuffer import upload_scene
-    from vkr_tpu.scene import colonnade_scene
+    from vkr.config import RenderConfig
+    from vkr.core.framestate import FrameState
+    from vkr.frame import build_ssr_resources, camera_frame
+    from vkr.mathlib import look_at
+    from vkr.parallel import make_render_mesh, render_views_sharded
+    from vkr.parallel.sharding import batch_cams, batch_states
+    from vkr.passes.gbuffer import upload_scene
+    from vkr.scene import colonnade_scene
 
     n = 4
     cfg = RenderConfig(width=64, height=64)
@@ -57,10 +57,12 @@ def test_view_parallel_rendering():
     assert not np.allclose(colors[0], colors[1])
 
 
-def test_band_viewport_raster_matches_full():
-    """Band-viewport mode (multi-chip pixel-band roadmap): rendering two
-    half-height bands must reproduce the full-frame visibility buffer."""
-    from vkr_tpu.raster import rasterize
+@pytest.mark.parametrize("n_bands", [2, 4])
+def test_band_viewport_raster_matches_full(n_bands):
+    """Band-viewport mode: rendering the frame as bands must reproduce
+    the full-frame visibility buffer, also where the band rows do not
+    start on the 16-row tile grid (bands of 36 and 18 rows)."""
+    from vkr.raster import rasterize
 
     rng = np.random.default_rng(5)
     n = 40
@@ -72,15 +74,16 @@ def test_band_viewport_raster_matches_full():
     clip = jnp.asarray(v.reshape(-1, 4))
     idx = jnp.arange(n * 3, dtype=jnp.int32).reshape(n, 3)
 
-    H, W = 64, 128
+    H, W = 72, 128
+    bh = H // n_bands
     full = rasterize(clip, idx, width=W, height=H, use_pallas=True,
                      interpret=True)
     bands = []
-    for b in range(2):
+    for b in range(n_bands):
         vis = rasterize(
-            clip, idx, width=W, height=H // 2, use_pallas=True,
+            clip, idx, width=W, height=bh, use_pallas=True,
             interpret=True, full_height=H,
-            y_offset=jnp.asarray(b * (H // 2), jnp.float32),
+            y_offset=jnp.asarray(b * bh, jnp.float32),
         )
         bands.append(vis)
     depth_bands = np.concatenate(
@@ -113,14 +116,14 @@ def test_band_sharded_frame_bit_matches_single_device():
     import jax
     from jax.sharding import Mesh
 
-    from vkr_tpu.config import RenderConfig
-    from vkr_tpu.core.framestate import FrameState
-    from vkr_tpu.frame import (build_ssr_resources, camera_frame,
+    from vkr.config import RenderConfig
+    from vkr.core.framestate import FrameState
+    from vkr.frame import (build_ssr_resources, camera_frame,
                                render_frame)
-    from vkr_tpu.mathlib import look_at
-    from vkr_tpu.parallel import render_frame_banded
-    from vkr_tpu.passes.gbuffer import upload_scene
-    from vkr_tpu.scene import colonnade_scene
+    from vkr.mathlib import look_at
+    from vkr.parallel import render_frame_banded
+    from vkr.passes.gbuffer import upload_scene
+    from vkr.scene import colonnade_scene
 
     H = W = 64
     cfg = RenderConfig(width=W, height=H)
@@ -162,10 +165,10 @@ def test_band_oracle_resolve_matches_full_frame():
     attribute resolve must evaluate band pixels at their GLOBAL rows
     (raster/resolve.pixel_barycentrics row_offset). Regression test for a
     bug where band G-buffers interpolated attributes at band-local rows."""
-    from vkr_tpu.mathlib import look_at
-    from vkr_tpu.mathlib.transforms import perspective
-    from vkr_tpu.passes.gbuffer import render_gbuffer, upload_scene
-    from vkr_tpu.scene import colonnade_scene
+    from vkr.mathlib import look_at
+    from vkr.mathlib.transforms import perspective
+    from vkr.passes.gbuffer import render_gbuffer, upload_scene
+    from vkr.scene import colonnade_scene
 
     scene = upload_scene(
         colonnade_scene(columns=2, tessellation=6, tex_size=32)
@@ -198,14 +201,14 @@ def test_band_frame_with_ray_query_gtao():
     path) must match the single-device frame."""
     import dataclasses
 
-    from vkr_tpu.config import GTAOConfig, RenderConfig
-    from vkr_tpu.core.framestate import FrameState
-    from vkr_tpu.frame import (build_scene_tri_grid, build_ssr_resources,
+    from vkr.config import GTAOConfig, RenderConfig
+    from vkr.core.framestate import FrameState
+    from vkr.frame import (build_scene_tri_grid, build_ssr_resources,
                                camera_frame, render_frame)
-    from vkr_tpu.mathlib import look_at
-    from vkr_tpu.parallel import render_frame_banded
-    from vkr_tpu.passes.gbuffer import upload_scene
-    from vkr_tpu.scene import colonnade_scene
+    from vkr.mathlib import look_at
+    from vkr.parallel import render_frame_banded
+    from vkr.passes.gbuffer import upload_scene
+    from vkr.scene import colonnade_scene
     from jax.sharding import Mesh
 
     H = W = 64
@@ -231,3 +234,34 @@ def test_band_frame_with_ray_query_gtao():
     )
     np.testing.assert_allclose(np.asarray(color_b), np.asarray(color_1),
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("band", [0, 2])
+def test_band_ssr_filter_matches_full_rows(band):
+    """ssr_filter in band mode: the neighbour taps step one texel of the
+    FULL image (dy / H), so each band's rows equal the full-frame rows
+    (to float rounding of the separately compiled programs)."""
+    import jax
+    import jax.numpy as jnp
+
+    from vkr.passes.ssr import SSRParams, ssr_filter
+
+    H, W, n = 16, 24, 4
+    bh = H // n
+    rng = np.random.default_rng(band)
+    rays = np.concatenate(
+        [rng.uniform(0.05, 0.95, (H, W, 2)), rng.uniform(0.9, 0.99, (H, W, 1)),
+         np.where(rng.random((H, W, 1)) < 0.7, 0.95, 1.0)], -1)
+    args = (jnp.asarray(rays, jnp.float32),
+            jnp.asarray(rng.uniform(0.9, 0.99, (H, W)), jnp.float32),
+            jnp.asarray(rng.random((2 * H, 2 * W, 4)), jnp.float32),
+            jnp.asarray(rng.random((H, W, 2)), jnp.float32),
+            jnp.asarray(rng.random((2 * H, 2 * W, 4)), jnp.float32))
+    p = SSRParams(normal_mat=jnp.eye(4), fovy=1.0, aspect=W / H,
+                  znear=0.1, zfar=50.0)
+    full = np.asarray(jax.jit(lambda *a: ssr_filter(*a, p))(*args))
+    rows = np.asarray(jax.jit(
+        lambda r0, *a: ssr_filter(*a, p, row0=r0, band_h=bh))(
+            jnp.int32(band * bh), *args))
+    np.testing.assert_allclose(rows, full[band * bh:(band + 1) * bh],
+                               rtol=1e-4, atol=1e-5)

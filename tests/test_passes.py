@@ -7,9 +7,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from vkr_tpu.mathlib import encode_normal, look_at, perspective
-from vkr_tpu.mathlib.projection import encode_depth
-from vkr_tpu.mathlib.transforms import inverse_rigid, normal_matrix
+from vkr.mathlib import encode_normal, look_at, perspective
+from vkr.mathlib.projection import encode_depth
+from vkr.mathlib.transforms import inverse_rigid, normal_matrix
 
 
 @pytest.fixture(scope="module")
@@ -54,7 +54,7 @@ def synthetic_scene():
 
 class TestDownsample:
     def test_hiz_min_property(self, synthetic_scene):
-        from vkr_tpu.passes.downsample import build_hiz
+        from vkr.passes.downsample import build_hiz
 
         s = synthetic_scene
         hiz = build_hiz(s["depth"], s["normal"], s["velocity"])
@@ -74,7 +74,7 @@ class TestDownsample:
             )
 
     def test_normal_follows_min_depth(self):
-        from vkr_tpu.passes.downsample import downsample_gbuffer
+        from vkr.passes.downsample import downsample_gbuffer
 
         depth = jnp.asarray([[0.5, 0.2], [0.9, 0.7]], jnp.float32)
         normal = jnp.arange(8, dtype=jnp.float32).reshape(2, 2, 2)
@@ -88,7 +88,7 @@ class TestDownsample:
 
 class TestGTAO:
     def _params(self, s):
-        from vkr_tpu.passes.gtao import GTAOParams
+        from vkr.passes.gtao import GTAOParams
 
         return GTAOParams(
             normal_mat=jnp.asarray(normal_matrix(s["view"])),
@@ -97,7 +97,7 @@ class TestGTAO:
         )
 
     def test_flat_plane_unoccluded(self):
-        from vkr_tpu.passes.gtao import (GTAOParams, gtao_filter,
+        from vkr.passes.gtao import (GTAOParams, gtao_filter,
                                          gtao_main_dense, gtao_main_exact)
 
         H = W = 64
@@ -115,25 +115,31 @@ class TestGTAO:
             assert filt.std() < 0.02
 
     def test_window_matches_exact(self, synthetic_scene):
-        """The window-gather main (production) uses the reference's own
-        fractional-step sampling — it must match the oracle to float
-        rounding, not just statistically."""
-        from vkr_tpu.passes.gtao import gtao_main_exact, gtao_main_window
+        """The production main ("gtao_main") IS the exact port with the
+        reference's own fractional-step sampling (16 bilinear taps, no
+        window clamp): the registry routes it there and the jitted pass
+        matches the eager oracle to float rounding."""
+        import jax
 
+        from vkr.core import registry
+        from vkr.passes.gtao import gtao_main_exact
+
+        assert registry.get("gtao_main") is gtao_main_exact
         s = synthetic_scene
         p = self._params(s)
         base = jnp.asarray(0.37)
         e = np.asarray(gtao_main_exact(s["depth"], s["normal"], p, base))
-        wdw = np.asarray(gtao_main_window(
-            s["depth"], s["normal"], p, base, interpret=True))
-        # float-rounding-level agreement (different lerp association +
-        # window-edge clamp): measured max 2.4e-4, mean 1e-5 — vs the
-        # dense fallback's 0.06 MEAN deviation
-        assert np.abs(e - wdw).max() < 1e-3, np.abs(e - wdw).max()
-        assert np.abs(e - wdw).mean() < 5e-5
+        j = np.asarray(jax.jit(
+            lambda d, n: registry.get("gtao_main")(d, n, p, base))(
+                s["depth"], s["normal"]))
+        # jit fuses the horizon march differently from eager execution:
+        # float-rounding-level deviations only (the bars of the former
+        # window-kernel comparison)
+        assert np.abs(e - j).max() < 1e-3, np.abs(e - j).max()
+        assert np.abs(e - j).mean() < 5e-5
 
     def test_dense_matches_exact_statistically(self, synthetic_scene):
-        from vkr_tpu.passes.gtao import (gtao_filter, gtao_main_dense,
+        from vkr.passes.gtao import (gtao_filter, gtao_main_dense,
                                          gtao_main_exact)
 
         s = synthetic_scene
@@ -149,7 +155,7 @@ class TestGTAO:
         assert np.abs(e - d).mean() < 0.06
 
     def test_accumulate_static_camera_converges(self, synthetic_scene):
-        from vkr_tpu.passes.gtao import GTAOAccumParams, gtao_accumulate
+        from vkr.passes.gtao import GTAOAccumParams, gtao_accumulate
 
         s = synthetic_scene
         inv = inverse_rigid(s["view"])
@@ -184,7 +190,7 @@ class TestGTAO:
 
 class TestSSRLuts:
     def test_brdf_lut_bounds(self):
-        from vkr_tpu.passes.ssr import preintegrate_brdf
+        from vkr.passes.ssr import preintegrate_brdf
 
         lut = np.asarray(preintegrate_brdf(32, num_samples=32))
         assert lut.shape == (32, 32, 2)
@@ -194,7 +200,7 @@ class TestSSRLuts:
         assert lut[-1, 2, 1] < 0.1
 
     def test_pdf_lut_positive(self):
-        from vkr_tpu.passes.ssr import preintegrate_pdf
+        from vkr.passes.ssr import preintegrate_pdf
 
         lut = np.asarray(preintegrate_pdf(32, steps=200))
         assert lut.shape == (32, 32)
@@ -205,10 +211,10 @@ class TestSSRTrace:
     def test_mirror_floor_hits_wall(self):
         """Rasterize a floor + wall with the real pipeline; near-mirror
         floor rays must find valid hits that land on wall pixels."""
-        from vkr_tpu.frame import build_ssr_resources
-        from vkr_tpu.passes.downsample import build_hiz
-        from vkr_tpu.passes.ssr import SSRParams, pack_pyramid, ssr_trace
-        from vkr_tpu.raster import rasterize
+        from vkr.frame import build_ssr_resources
+        from vkr.passes.downsample import build_hiz
+        from vkr.passes.ssr import SSRParams, pack_pyramid, ssr_trace
+        from vkr.raster import rasterize
 
         W = H = 64
         view = look_at((0, 1.0, -2.0), (0, 0.8, 1.0), (0, -1, 0))
@@ -267,7 +273,7 @@ class TestSSRTrace:
 
 class TestTAA:
     def test_static_scene_converges_to_current(self, synthetic_scene):
-        from vkr_tpu.passes.taa import TAAParams, taa_resolve
+        from vkr.passes.taa import TAAParams, taa_resolve
 
         s = synthetic_scene
         inv = jnp.asarray(inverse_rigid(s["view"]))
@@ -281,7 +287,7 @@ class TestTAA:
         np.testing.assert_allclose(np.asarray(out), 0.8, atol=1e-6)
 
     def test_neighborhood_clamp_rejects_ghost(self, synthetic_scene):
-        from vkr_tpu.passes.taa import TAAParams, taa_resolve
+        from vkr.passes.taa import TAAParams, taa_resolve
 
         s = synthetic_scene
         inv = jnp.asarray(inverse_rigid(s["view"]))
@@ -302,7 +308,7 @@ class TestTAA:
 
 class TestSSAO:
     def test_flat_wall_unoccluded(self):
-        from vkr_tpu.passes.ssao import SSAOParams, ssao
+        from vkr.passes.ssao import SSAOParams, ssao
 
         H = W = 64
         proj = perspective(np.radians(60), 1.0, 0.05, 80.0)
@@ -318,7 +324,7 @@ class TestSSAO:
 
 class TestScreenTrace:
     def test_runs_and_bounded(self, synthetic_scene):
-        from vkr_tpu.passes.screen_trace import (ScreenTraceParams,
+        from vkr.passes.screen_trace import (ScreenTraceParams,
                                                  screen_trace,
                                                  screen_trace_filter)
 
@@ -341,7 +347,7 @@ class TestScreenTrace:
 
 class TestUtilPasses:
     def test_perlin_range_and_det(self):
-        from vkr_tpu.passes.util_passes import gen_perlin_noise2d
+        from vkr.passes.util_passes import gen_perlin_noise2d
 
         a = np.asarray(gen_perlin_noise2d(32, 32))
         b = np.asarray(gen_perlin_noise2d(32, 32))
@@ -349,7 +355,7 @@ class TestUtilPasses:
         assert a.std() > 0.01 and np.abs(a).max() < 4.0
 
     def test_mipmaps(self):
-        from vkr_tpu.passes.util_passes import gen_mipmaps
+        from vkr.passes.util_passes import gen_mipmaps
 
         img = jnp.ones((16, 8, 3))
         mips = gen_mipmaps(img)
@@ -359,7 +365,7 @@ class TestUtilPasses:
         assert np.allclose(np.asarray(mips[-1]), 1.0)
 
     def test_backbuffer_channel_select(self):
-        from vkr_tpu.passes.util_passes import DrawTex, backbuffer_draw
+        from vkr.passes.util_passes import DrawTex, backbuffer_draw
 
         tex = jnp.stack(
             [jnp.full((8, 8), 0.1), jnp.full((8, 8), 0.5),
@@ -369,7 +375,7 @@ class TestUtilPasses:
         assert np.allclose(r, 0.5, atol=1e-6)
 
     def test_blit_resizes(self):
-        from vkr_tpu.passes.util_passes import blit_image
+        from vkr.passes.util_passes import blit_image
 
         img = jnp.arange(64, dtype=jnp.float32).reshape(8, 8)
         out = blit_image(img, 4, 4)
@@ -384,11 +390,11 @@ class TestShadowPath:
         import numpy as np
         import jax.numpy as jnp
 
-        from vkr_tpu.mathlib import look_at, perspective
-        from vkr_tpu.passes.gbuffer import upload_scene
-        from vkr_tpu.passes.shadows import (render_shadow_map,
+        from vkr.mathlib import look_at, perspective
+        from vkr.passes.gbuffer import upload_scene
+        from vkr.passes.shadows import (render_shadow_map,
                                             sample_shadow_factor)
-        from vkr_tpu.scene.procedural import two_masked_quads_scene
+        from vkr.scene.procedural import two_masked_quads_scene
 
         # reuse the stacked-quads scene: backdrop at z=2 is the "floor",
         # the z=-1 quad the occluder; light looks down +z
@@ -413,7 +419,7 @@ class TestShadowPath:
         import numpy as np
         import jax.numpy as jnp
 
-        from vkr_tpu.passes.util_passes import draw_directions
+        from vkr.passes.util_passes import draw_directions
 
         img = np.asarray(draw_directions(32, 32, jnp.asarray(0.0)))
         assert img.shape == (32, 32) and (img >= 0).all() and (img < 1).all()
@@ -422,3 +428,27 @@ class TestShadowPath:
         # to the GLSL
         assert np.allclose(img, img[0][None, :])
         assert img[0].std() > 0.1  # hashed stripes, not constant
+
+
+def test_halton_base_index_band_rows_and_formula():
+    """The SSR trace's per-pixel halton base index: trace.comp rand(uv)
+    scaled to the sequence size, the same table in every program, and a
+    band's rows are the full table's rows."""
+    from vkr.passes.ssr import HALTON_SEQ_SIZE, halton_base_index
+
+    h, w, bh, row0 = 30, 44, 10, 12
+    full = np.asarray(halton_base_index(h, w))
+    assert full.shape == (h, w) and full.max() < HALTON_SEQ_SIZE
+    band = np.asarray(jax.jit(lambda r: halton_base_index(h, w, r, bh))(
+        jnp.int32(row0)))
+    np.testing.assert_array_equal(band, full[row0:row0 + bh])
+    # the reference hash at a few pixels, evaluated in float64
+    for y, x in ((0, 0), (7, 31), (29, 43)):
+        u = np.float32((x + 0.5) / w)
+        v = np.float32((y + 0.5) / h)
+        dot = np.float32(u * np.float32(12.9898)) + \
+            np.float32(v * np.float32(78.233))
+        s = np.sin(np.float64(dot)) * 43758.5453
+        rand = np.float32(s - np.floor(s))
+        assert full[y, x] == min(int(rand * np.float32(HALTON_SEQ_SIZE)),
+                                 HALTON_SEQ_SIZE - 1)

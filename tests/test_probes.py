@@ -5,7 +5,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from vkr_tpu.passes import probes as P
+from vkr.passes import probes as P
 
 
 class TestOctMath:
@@ -56,8 +56,8 @@ class TestCubemap:
 class TestProbeRenderer:
     @pytest.fixture(scope="class")
     def scene(self):
-        from vkr_tpu.passes.gbuffer import upload_scene
-        from vkr_tpu.scene import colonnade_scene
+        from vkr.passes.gbuffer import upload_scene
+        from vkr.scene import colonnade_scene
 
         return upload_scene(
             colonnade_scene(columns=2, tessellation=6, tex_size=32,
@@ -85,9 +85,9 @@ class TestProbeRenderer:
             )
 
     def test_probe_grid_trace_smoke(self, scene):
-        from vkr_tpu.mathlib import look_at, perspective
-        from vkr_tpu.mathlib.transforms import inverse_rigid
-        from vkr_tpu.passes.gbuffer import render_gbuffer
+        from vkr.mathlib import look_at, perspective
+        from vkr.mathlib.transforms import inverse_rigid
+        from vkr.passes.gbuffer import render_gbuffer
 
         grid = P.render_probe_grid(
             scene, (-2, 1.5, -2), (2, 1.5, 2), grid_size=2,
@@ -118,13 +118,13 @@ class TestProbeGIFrame:
         input, and probe hits are visible in the shaded result."""
         import dataclasses
 
-        from vkr_tpu.config import RenderConfig
-        from vkr_tpu.core.framestate import FrameState
-        from vkr_tpu.frame import (build_probe_grid, build_ssr_resources,
+        from vkr.config import RenderConfig
+        from vkr.core.framestate import FrameState
+        from vkr.frame import (build_probe_grid, build_ssr_resources,
                                    camera_frame, render_frame)
-        from vkr_tpu.mathlib import look_at
-        from vkr_tpu.passes.gbuffer import upload_scene
-        from vkr_tpu.scene import colonnade_scene
+        from vkr.mathlib import look_at
+        from vkr.passes.gbuffer import upload_scene
+        from vkr.scene import colonnade_scene
 
         H = W = 64
         scene_cpu = colonnade_scene(columns=2, tessellation=6, tex_size=32,
@@ -164,7 +164,7 @@ class TestProbeCompose:
         import jax.numpy as jnp
         import numpy as np
 
-        from vkr_tpu.frame import compose_probe_reflections
+        from vkr.frame import compose_probe_reflections
 
         ssr = jnp.zeros((2, 2, 3), jnp.float32)  # black everywhere
         rays = jnp.zeros((2, 2, 4), jnp.float32)

@@ -6,8 +6,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from vkr_tpu.mathlib import look_at, perspective
-from vkr_tpu.raster import (
+from vkr.mathlib import look_at, perspective
+from vkr.raster import (
     clip_near_triangles,
     corner_attributes,
     interpolate,
@@ -248,26 +248,41 @@ class TestOverflow:
         assert int(vis.overflow) == 0
 
     def test_capacity_exceeded_is_counted(self):
+        from vkr.raster.kernel import TILE_H, TILE_W
+
         clip, idx = self._quad()
-        # A fullscreen triangle at 256x64 spans 2x8=16 tiles; capacity 8
-        # must report 8 dropped pairs (not silently lose geometry).
+        # A fullscreen triangle at 256x64 spans every tile; capacity 8
+        # must report the rest as dropped (not silently lose geometry).
         vis = rasterize(clip, idx, width=256, height=64,
                         use_pallas=True, interpret=True, pair_capacity=8)
-        assert int(vis.overflow) == 8
+        n_tiles = (256 // TILE_W) * (64 // TILE_H)
+        assert int(vis.overflow) == n_tiles - 8
 
 
 def test_peel_requires_merged_kernel():
-    """peel_depth is only honored by the merged raster+resolve kernel or
-    the XLA oracle; the visibility-only Pallas path must refuse it loudly
+    """peel_depth is honoured by every raster route, with or without
+    attributes: the tile walk must peel to the same layer as the oracle
     instead of silently rendering the first layer."""
-    clip = ndc_tri_clip(
-        np.array([[-0.5, -0.5, 0.5], [0.5, -0.5, 0.5], [0.0, 0.5, 0.5]])
-    )
-    idx = jnp.arange(3, dtype=jnp.int32)[None]
-    peel = jnp.zeros((32, 64), jnp.float32)
-    with pytest.raises(ValueError, match="peel_depth"):
-        rasterize(clip, idx, width=64, height=32, use_pallas=True,
-                  interpret=True, peel_depth=peel)
+    clip = ndc_tri_clip(np.array([
+        [-0.5, -0.5, 0.3], [0.5, -0.5, 0.3], [0.0, 0.5, 0.3],   # front
+        [-0.8, -0.8, 0.6], [0.8, -0.8, 0.6], [0.0, 0.8, 0.6],   # behind
+    ]))
+    idx = jnp.arange(6, dtype=jnp.int32).reshape(2, 3)
+    kw = dict(width=64, height=32)
+    first = rasterize(clip, idx, use_pallas=False, **kw)
+    peeled_ref = rasterize(clip, idx, use_pallas=False,
+                           peel_depth=first.depth, **kw)
+    peeled = rasterize(clip, idx, use_pallas=True, interpret=True,
+                       peel_depth=first.depth, **kw)
+    src = np.asarray(peeled.src)
+    front = np.asarray(first.tri_id) >= 0
+    assert front.any()
+    # under the front triangle only the back one survives the peel
+    assert np.all(src[np.asarray(peeled.tri_id)[front]] == 1)
+    np.testing.assert_array_equal(np.asarray(peeled_ref.tri_id),
+                                  np.asarray(peeled.tri_id))
+    np.testing.assert_array_equal(np.asarray(peeled_ref.depth),
+                                  np.asarray(peeled.depth))
 
 
 class TestBenchOrbitEnclosure:
@@ -282,11 +297,11 @@ class TestBenchOrbitEnclosure:
         import jax
 
         from bench import BENCH_CENTER, BENCH_EYE, bench_orbit_view
-        from vkr_tpu.config import RenderConfig
-        from vkr_tpu.core import registry
-        from vkr_tpu.frame import camera_frame
-        from vkr_tpu.passes.gbuffer import upload_scene
-        from vkr_tpu.scene.procedural import colonnade_scene
+        from vkr.config import RenderConfig
+        from vkr.core import registry
+        from vkr.frame import camera_frame
+        from vkr.passes.gbuffer import upload_scene
+        from vkr.scene.procedural import colonnade_scene
 
         width, height = 256, 128
         cfg = RenderConfig(width=width, height=height)
@@ -332,9 +347,9 @@ class TestSoAFrontEnd:
     def test_bitwise_vs_rowmajor(self):
         import jax
 
-        from vkr_tpu.raster import pair_rows as RR
-        from vkr_tpu.raster import setup as RS
-        from vkr_tpu.raster.resolve import corner_attributes_pre
+        from vkr.raster import pair_rows as RR
+        from vkr.raster import setup as RS
+        from vkr.raster.resolve import corner_attributes_pre
 
         T = 1500
         k = jax.random.PRNGKey(7)
@@ -367,16 +382,18 @@ class TestSoAFrontEnd:
             return rows, bins
 
         # eager: bitwise on the raster-critical columns (edges, depth
-        # plane, ids, denom, material) — no fusion-dependent FMA
-        # contraction outside jit. The attribute-plane columns 19:46 go
+        # plane, ids, coverage box, denom, material) — no fusion-dependent
+        # FMA contraction outside jit. The attribute-plane columns go
         # through einsum in the row-major path (a dot op with its own
         # accumulation) and are relative-tolerance everywhere.
         ro_e, bo_e = rowmajor(tri)
         rn_e, bn_e = soa(tri_t)
         ro_e = np.asarray(ro_e)
         rn_e = np.asarray(rn_e)
-        assert np.array_equal(ro_e[:, :19], rn_e[:, :19])
-        assert np.array_equal(ro_e[:, 46], rn_e[:, 46])
+        planes = RR.RESOLVE_BASE + 3
+        mat_col = RR.RESOLVE_BASE + 3 + 3 * RR.N_CHANNELS
+        assert np.array_equal(ro_e[:, :planes], rn_e[:, :planes])
+        assert np.array_equal(ro_e[:, mat_col], rn_e[:, mat_col])
         for x, y in zip(bo_e, bn_e):
             assert np.array_equal(np.asarray(x), np.asarray(y))
 
@@ -394,3 +411,151 @@ class TestSoAFrontEnd:
         bo = jax.jit(rowmajor)(tri)[1]
         for x, y in zip(bo, bn):
             assert np.array_equal(np.asarray(x), np.asarray(y))
+
+
+def _soup(n_tri, seed=0):
+    return TestPallasKernel()._random_soup(n_tri, seed=seed)
+
+
+def _prepared(clip, idx, width, height, **kw):
+    vis = rasterize(clip, idx, width=width, height=height, use_pallas=True,
+                    interpret=True, keep_prepared=True, **kw)
+    return vis, vis.prepared
+
+
+class TestTileKernelWrapper:
+    """The tile walk's wrapper: tile padding, band row origin, peeling,
+    the plain-XLA comparator and the attribute resolve."""
+
+    def test_tile_padding_and_crop(self):
+        from vkr.raster.kernel import TILE_H, TILE_W, raster_tiles
+
+        clip, idx = _soup(20, seed=3)
+        vis, prep = _prepared(clip, idx, 200, 100)
+        assert vis.depth.shape == (100, 200)
+        z, tid = raster_tiles(prep.pair_rows, prep.seg_starts,
+                              prep.seg_counts, width=200, height=100,
+                              interpret=True)
+        assert z.shape == tid.shape == (-(-100 // TILE_H) * TILE_H,
+                                        -(-200 // TILE_W) * TILE_W)
+        np.testing.assert_array_equal(np.asarray(tid)[:100, :200],
+                                      np.asarray(vis.tri_id))
+
+    @pytest.mark.parametrize("row0", [0, 32])
+    def test_row_offset_is_band_exact(self, row0):
+        clip, idx = _soup(60, seed=5)
+        H, W, bh = 96, 64, 32
+        full = rasterize(clip, idx, width=W, height=H, use_pallas=True,
+                         interpret=True)
+        band = rasterize(clip, idx, width=W, height=bh, use_pallas=True,
+                         interpret=True, full_height=H,
+                         y_offset=jnp.int32(row0))
+        np.testing.assert_array_equal(
+            np.asarray(band.tri_id), np.asarray(full.tri_id)[row0:row0 + bh])
+        np.testing.assert_array_equal(
+            np.asarray(band.depth), np.asarray(full.depth)[row0:row0 + bh])
+
+    def test_coverage_limited_to_the_bbox(self):
+        """A pair whose edge functions hold everywhere covers only the
+        pixel centres inside its box, whatever tile evaluates it."""
+        from vkr.raster.kernel import RASTER_ROW, _cover
+
+        row = np.zeros(RASTER_ROW, np.float32)
+        row[6:9] = 1.0                 # e_i = 1: inside every edge
+        row[11] = 0.5                  # depth 0.5 everywhere
+        row[13:17] = [3.5, 5.5, 2.5, 4.5]   # pixels x 3..5, y 2..4
+        ys, xs = np.mgrid[0:16, 0:16].astype(np.float32) + 0.5
+        cover, _ = _cover(lambda k: row[k], jnp.asarray(xs),
+                          jnp.asarray(ys), 1.0, -1.0)
+        want = np.zeros((16, 16), bool)
+        want[2:5, 3:6] = True
+        np.testing.assert_array_equal(np.asarray(cover), want)
+
+    @pytest.mark.parametrize("n_tri", [7, 100])
+    def test_xla_comparator_matches_kernel(self, n_tri):
+        from vkr.raster.kernel import raster_tiles_xla
+
+        clip, idx = _soup(n_tri, seed=n_tri)
+        vis, prep = _prepared(clip, idx, 96, 80)
+        z, tid = raster_tiles_xla(prep.pair_rows, prep.seg_starts,
+                                  prep.seg_counts, width=96, height=80)
+        np.testing.assert_array_equal(np.asarray(tid)[:80, :96],
+                                      np.asarray(vis.tri_id))
+        np.testing.assert_array_equal(np.asarray(z)[:80, :96],
+                                      np.asarray(vis.depth))
+
+    def test_heavy_tile_split_matches_oracle(self):
+        """A tile holding more than PAIRS_PER_ITEM pairs is walked by
+        several programs and merged: still the oracle's visibility."""
+        from vkr.raster.kernel import PAIRS_PER_ITEM, TILE_H, TILE_W
+
+        n = 3 * PAIRS_PER_ITEM + 17
+        rng = np.random.default_rng(23)
+        W, H = 2 * TILE_W, 2 * TILE_H
+        # small triangles crowded into the first tile (NDC of 0..TILE px)
+        c = rng.uniform(-1.0, -1.0 + 2.0 * TILE_W / W, (n, 1, 2))
+        v = np.concatenate(
+            [c + rng.uniform(-0.05, 0.05, (n, 3, 2)),
+             rng.uniform(0.1, 0.9, (n, 3, 1)), np.ones((n, 3, 1))],
+            -1).astype(np.float32)
+        clip = jnp.asarray(v.reshape(-1, 4))
+        idx = jnp.arange(3 * n, dtype=jnp.int32).reshape(n, 3)
+        ref = rasterize(clip, idx, width=W, height=H, use_pallas=False)
+        vis, prep = _prepared(clip, idx, W, H)
+        assert int(prep.seg_counts.max()) > 2 * PAIRS_PER_ITEM
+        np.testing.assert_array_equal(np.asarray(vis.tri_id),
+                                      np.asarray(ref.tri_id))
+        np.testing.assert_allclose(np.asarray(vis.depth),
+                                   np.asarray(ref.depth), atol=1e-6)
+
+    def test_xla_comparator_honours_peel(self):
+        from vkr.raster.kernel import raster_tiles, raster_tiles_xla
+
+        clip, idx = _soup(80, seed=11)
+        vis, prep = _prepared(clip, idx, 64, 48)
+        args = (prep.pair_rows, prep.seg_starts, prep.seg_counts,
+                vis.depth)
+        zk, tk = raster_tiles(*args, width=64, height=48, interpret=True)
+        zx, tx = raster_tiles_xla(*args, width=64, height=48)
+        np.testing.assert_array_equal(np.asarray(tk), np.asarray(tx))
+        np.testing.assert_array_equal(np.asarray(zk), np.asarray(zx))
+        # peeling moved some pixels to a farther layer
+        assert (np.asarray(zk)[:48, :64] > np.asarray(vis.depth)).any()
+
+    def test_resolved_attributes_match_oracle(self):
+        """Plane replay of the winner's row (tile route) vs barycentric
+        interpolation (oracle route): perspective-correct attributes
+        agree to float rounding wherever both pick the same triangle."""
+        clip, idx = _soup(40, seed=13)
+        rng = np.random.default_rng(14)
+        attrs = jnp.asarray(rng.normal(size=(clip.shape[0], 9)),
+                            jnp.float32)
+        mat = jnp.arange(idx.shape[0], dtype=jnp.int32) % 5
+        kw = dict(width=64, height=64, vertex_attrs=attrs, tri_mat=mat)
+        ref = rasterize(clip, idx, use_pallas=False, **kw)
+        ker = rasterize(clip, idx, use_pallas=True, interpret=True, **kw)
+        same = np.asarray(ref.tri_id) == np.asarray(ker.tri_id)
+        assert same.mean() > 0.999
+        fg = same & (np.asarray(ref.tri_id) >= 0)
+        a, b = np.asarray(ref.resolved)[fg], np.asarray(ker.resolved)[fg]
+        np.testing.assert_array_equal(a[:, 9], b[:, 9])  # material id
+        np.testing.assert_allclose(a[:, :9], b[:, :9], rtol=1e-3,
+                                   atol=1e-3)
+        bg = np.asarray(ker.tri_id) < 0
+        assert bg.any()
+        assert np.all(np.asarray(ker.resolved)[bg][:, :9] == 0.0)
+        assert np.all(np.asarray(ker.resolved)[bg][:, 9] == -1.0)
+
+
+@pytest.mark.gpu
+def test_compiled_tile_kernel_matches_xla(gpu_device):
+    """The compiled Triton tile walk vs the plain-XLA comparator (chip
+    check; chip_smoke.py runs the same comparison at bench size)."""
+    from vkr.raster.kernel import raster_tiles, raster_tiles_xla
+
+    clip, idx = _soup(500, seed=21)
+    vis, prep = _prepared(clip, idx, 256, 128)
+    args = (prep.pair_rows, prep.seg_starts, prep.seg_counts)
+    zk, tk = raster_tiles(*args, width=256, height=128)
+    zx, tx = raster_tiles_xla(*args, width=256, height=128)
+    assert (np.asarray(tk) == np.asarray(tx)).mean() >= 0.9999

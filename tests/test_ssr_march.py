@@ -1,14 +1,16 @@
-"""Pallas 3-phase hi-Z march (ssr_march.py) vs the XLA oracle march."""
+"""The SSR march kernel (ssr_march.march_kernel, Triton route in
+interpret mode) vs the plain XLA march."""
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
-from vkr_tpu.mathlib import encode_normal, look_at, perspective
-from vkr_tpu.mathlib.transforms import normal_matrix
-from vkr_tpu.passes.downsample import build_hiz
-from vkr_tpu.passes import ssr as S
-from vkr_tpu.passes.ssr_march import hierarchical_march_pallas
-from vkr_tpu.raster import rasterize
+from vkr.mathlib import encode_normal, look_at, perspective
+from vkr.mathlib.transforms import normal_matrix
+from vkr.passes.downsample import build_hiz
+from vkr.passes import ssr as S
+from vkr.passes.ssr_march import march_kernel, march_plain
+from vkr.raster import rasterize
 
 
 def _scene(H=64, W=64):
@@ -39,10 +41,10 @@ def _scene(H=64, W=64):
 def _rays(hiz, params):
     """Deterministic mirror rays off the G-buffer (the ssr_trace ray
     setup with roughness 0 so VNDF == normal)."""
-    from vkr_tpu.mathlib.octahedral import decode_normal
-    from vkr_tpu.mathlib.projection import (project_view_vec,
+    from vkr.mathlib.octahedral import decode_normal
+    from vkr.mathlib.projection import (project_view_vec,
                                             reconstruct_view_vec)
-    from vkr_tpu.passes.sampling import screen_uv_grid
+    from vkr.passes.sampling import screen_uv_grid
 
     pyr = S.pack_pyramid(hiz.mips)
     h, w = pyr.heights[0], pyr.widths[0]
@@ -75,35 +77,33 @@ class TestPallasMarch:
         hiz, params = _scene()
         pyr, o, d, cam, w0 = _rays(hiz, params)
 
-        pos_ref, hor_ref, it_ref = S._hierarchical_march(
-            pyr, o, d, cam, w0, params, MAX_IT, compact_frac=0.0
-        )
-        pos_k, hor_k, it_k = hierarchical_march_pallas(
-            list(hiz.mips), o, d, cam, w0, params, MAX_IT,
-            compact_frac=1.0, interpret=True,
-        )
+        pos_ref, hor_ref, it_ref = march_plain(
+            pyr, o, d, cam, w0, params, MAX_IT)
+        pos_k, hor_k, it_k = march_kernel(
+            pyr, o, d, cam, w0, params, MAX_IT, interpret=True)
+        assert pos_k.shape == pos_ref.shape and it_k.dtype == it_ref.dtype
 
+        # One transcription of the step runs both ways; in the
+        # interpreter the arithmetic is the same XLA:CPU code, so every
+        # ray must agree (on the card FMA contraction may flip a few
+        # knife-edge DDA decisions: chip_smoke.py allows 0.1%).
         valid_ref = np.asarray(it_ref) <= MAX_IT
         valid_k = np.asarray(it_k) <= MAX_IT
         agree = (valid_ref == valid_k).mean()
-        assert agree > 0.97, f"validity agreement {agree}"
-
+        assert agree >= 0.999, f"validity agreement {agree}"
         both = valid_ref & valid_k
-        if both.any():
-            dp = np.abs(np.asarray(pos_k) - np.asarray(pos_ref))[both]
-            # phase-B hi/lo bf16 table: ~4e-6 depth error can shift a DDA
-            # decision; the bulk of hits must land on the same texel
-            assert np.percentile(dp[..., :2].max(-1), 95) < 1.0 / 64.0
-        # horizon estimates agree where both valid
+        assert both.any()
+        dp = np.abs(np.asarray(pos_k) - np.asarray(pos_ref))[both]
+        assert dp[..., :2].max() < 1.0 / 64.0  # within one texel
         dh = np.abs(np.asarray(hor_k) - np.asarray(hor_ref))
-        assert np.percentile(dh, 90) < 0.05
+        assert np.percentile(dh, 99) < 1e-4
 
     def test_trace_level_parity(self):
-        """ssr_trace(use_kernel=True) ~ ssr_trace(False) on the mirror
+        """ssr_trace(use_pallas=True) ~ ssr_trace(False) on the mirror
         scene (stochastic pass; compare hit-validity rate + uv error)."""
         hiz, params = _scene()
         pyr = S.pack_pyramid(hiz.mips)
-        from vkr_tpu.frame import build_ssr_resources
+        from vkr.frame import build_ssr_resources
 
         res = build_ssr_resources(32)
         material = jnp.full((128, 128, 4), 0.1)  # low roughness
@@ -115,7 +115,7 @@ class TestPallasMarch:
         rays_b, occ_b = S.ssr_trace(pyr, hiz.normal_half, material,
                                     res.pdf_lut, params,
                                     jnp.asarray(0, jnp.int32), res.halton,
-                                    use_kernel=True, interpret=True, **kw)
+                                    use_pallas=True, interpret=True, **kw)
         va = np.asarray(rays_a[..., 3]) != 1.0
         vb = np.asarray(rays_b[..., 3]) != 1.0
         assert (va == vb).mean() > 0.95
@@ -135,17 +135,13 @@ class TestAnalyticGroundTruth:
     the camera across the floor plane."""
 
     def test_hits_match_geometric_reflection(self):
-        from vkr_tpu.mathlib import look_at, perspective
-        from vkr_tpu.passes import ssr as S
-        from vkr_tpu.passes.ssr_march import hierarchical_march_pallas
+        from vkr.mathlib import look_at, perspective
 
         MAX_IT = 64
         hiz, params = _scene(128, 128)
         pyr, o, d, cam, w0 = _rays(hiz, params)
-        pos, hor, it = hierarchical_march_pallas(
-            list(hiz.mips), o, d, cam, w0, params, MAX_IT,
-            compact_frac=1.0, interpret=True,
-        )
+        pos, hor, it = march_kernel(pyr, o, d, cam, w0, params, MAX_IT,
+                                    interpret=True)
         pos = np.asarray(pos)
         valid = np.asarray(it) <= MAX_IT
 
@@ -157,8 +153,8 @@ class TestAnalyticGroundTruth:
         cam_pos = inv_view[:3, 3]
         h, w = pos.shape[:2]
 
-        from vkr_tpu.mathlib.projection import reconstruct_view_vec
-        from vkr_tpu.passes.sampling import screen_uv_grid
+        from vkr.mathlib.projection import reconstruct_view_vec
+        from vkr.passes.sampling import screen_uv_grid
 
         depth0 = np.asarray(hiz.mips[0])
         uv = np.asarray(screen_uv_grid(h, w))
@@ -192,3 +188,34 @@ class TestAnalyticGroundTruth:
         # sub-2-texel agreement for the bulk of floor pixels
         assert np.percentile(err, 80) < 2.0 / w, np.percentile(err, 80)
         assert np.median(err) < 1.0 / w
+
+
+class TestMarchKernelWrapper:
+    def test_partial_block_shapes(self):
+        """Ray counts that are not a multiple of RAY_BLOCK: the wrapper
+        pads with retired rays and crops back to the leading shape."""
+        from vkr.passes.ssr_march import RAY_BLOCK
+
+        hiz, params = _scene(32, 32)
+        pyr, o, d, cam, w0 = _rays(hiz, params)
+        sl = (slice(3, 13), slice(0, 13))  # 130 rays
+        assert (10 * 13) % RAY_BLOCK != 0
+        args = [a[sl] for a in (o, d, cam, w0)]
+        pos, hor, it = march_kernel(pyr, *args, params, 24, interpret=True)
+        assert pos.shape == (10, 13, 3) and hor.shape == it.shape == (10, 13)
+        pos_p, hor_p, it_p = march_plain(pyr, *args, params, 24)
+        np.testing.assert_array_equal(np.asarray(it), np.asarray(it_p))
+        np.testing.assert_allclose(np.asarray(pos), np.asarray(pos_p),
+                                   atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_compiled_march_kernel_matches_plain(gpu_device):
+    """The compiled Triton march vs the plain XLA march (chip check;
+    chip_smoke.py runs it at bench size)."""
+    hiz, params = _scene(128, 128)
+    pyr, o, d, cam, w0 = _rays(hiz, params)
+    _, _, it_k = march_kernel(pyr, o, d, cam, w0, params, 80)
+    _, _, it_p = march_plain(pyr, o, d, cam, w0, params, 80)
+    agree = ((np.asarray(it_k) <= 80) == (np.asarray(it_p) <= 80)).mean()
+    assert agree >= 0.999

@@ -4,10 +4,10 @@ per-texture resolution/aspect parity path (scene.cpp:104-161)."""
 import numpy as np
 import jax.numpy as jnp
 
-from vkr_tpu.raster.texture import (pack_texture_array_native,
+from vkr.raster.texture import (pack_texture_array_native,
                                     sample_material_pair,
                                     sample_texture_array)
-from vkr_tpu.scene.gltf import WRAP_CLAMP, WRAP_REPEAT
+from vkr.scene.gltf import WRAP_CLAMP, WRAP_REPEAT
 
 
 def _mk(h, w, seed):
@@ -123,10 +123,10 @@ class TestNativeSceneLoad:
     def test_gltf_native_load_renders(self):
         import jax
 
-        from vkr_tpu.scene.scene import compile_scene
-        from vkr_tpu.scene import gltf as G
-        from vkr_tpu.passes.gbuffer import render_gbuffer, upload_scene
-        from vkr_tpu.mathlib import look_at, perspective
+        from vkr.scene.scene import compile_scene
+        from vkr.scene import gltf as G
+        from vkr.passes.gbuffer import render_gbuffer, upload_scene
+        from vkr.mathlib import look_at, perspective
 
         path = "/root/reference/assets/gltf/suzanne/Suzanne.gltf"
         sc = compile_scene(G.load_gltf(path), tex_size=256,

@@ -3,14 +3,14 @@
 import numpy as np
 import jax.numpy as jnp
 
-from vkr_tpu.mathlib import look_at
-from vkr_tpu.mathlib.projection import encode_depth
-from vkr_tpu.mathlib.transforms import inverse_rigid
+from vkr.mathlib import look_at
+from vkr.mathlib.projection import encode_depth
+from vkr.mathlib.transforms import inverse_rigid
 
 
 class TestClassification:
     def test_partition(self):
-        from vkr_tpu.passes.ssr_tiles import classify_tiles
+        from vkr.passes.ssr_tiles import classify_tiles
 
         h = w = 32  # 4x4 tiles
         mat = np.zeros((h, w, 4), np.float32)
@@ -28,7 +28,7 @@ class TestClassification:
         assert set(gl[:15]) == set(range(1, 16))
 
     def test_indirect_mask(self):
-        from vkr_tpu.passes.ssr_tiles import (classify_tiles,
+        from vkr.passes.ssr_tiles import (classify_tiles,
                                               trace_indirect_mask)
 
         h = w = 16
@@ -43,7 +43,7 @@ class TestRegression:
     def test_plane_fit_on_flat_floor(self):
         """Points on the plane y=1 (world, camera-relative): fitted plane p
         must satisfy dot(p, x) = 1 -> p ~ (0, 1, 0), mse ~ 0."""
-        from vkr_tpu.passes.ssr_tiles import tile_plane_regression
+        from vkr.passes.ssr_tiles import tile_plane_regression
 
         h = w = 16
         fovy, aspect, zn, zf = np.radians(60), 1.0, 0.05, 80.0
@@ -87,7 +87,7 @@ class TestRegression:
 
 class TestDeinterleave:
     def test_round_trip(self):
-        from vkr_tpu.passes.gtao import (deinterleave_depth,
+        from vkr.passes.gtao import (deinterleave_depth,
                                          interleave_layers)
 
         rng = np.random.default_rng(0)
@@ -98,7 +98,7 @@ class TestDeinterleave:
         np.testing.assert_array_equal(np.asarray(back), np.asarray(d))
 
     def test_layer_extraction(self):
-        from vkr_tpu.passes.gtao import deinterleave_depth
+        from vkr.passes.gtao import deinterleave_depth
 
         h = w = 8
         d = np.arange(h * w, dtype=np.float32).reshape(h, w)
@@ -109,8 +109,8 @@ class TestDeinterleave:
         np.testing.assert_array_equal(layers[2], d[1::2, ::2])
 
     def test_deinterleaved_gtao_close_to_plain(self):
-        from vkr_tpu.mathlib import encode_normal
-        from vkr_tpu.passes.gtao import (GTAOParams, gtao_filter,
+        from vkr.mathlib import encode_normal
+        from vkr.passes.gtao import (GTAOParams, gtao_filter,
                                          gtao_main_deinterleaved)
 
         H = W = 64
